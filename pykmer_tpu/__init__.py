@@ -1,11 +1,11 @@
-"""pykmer_tpu — TPU-native k-mer counting and sample-comparison engine.
+"""pykmer_tpu — GPU k-mer counting and sample-comparison engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of sauloal/pykmer
+A from-scratch JAX/XLA re-design of the capabilities of sauloal/pykmer
 (reference: /root/reference): FASTA → dense 4^K uint8 canonical k-mer coverage
 array (`.kin` + `.kin.json`), N×N shared-kmer matrices (`.kma` + `.kma.json`),
 and Jaccard-distance / neighbour-joining analysis outputs — with byte-identical
-file formats, but computed by vectorised XLA programs sharded over TPU meshes
-instead of pypy loops.
+file formats, but computed by vectorised XLA programs sharded over device
+meshes instead of pypy loops.
 
 Layout
 ------

@@ -9,16 +9,30 @@ module is therefore the ONLY place the flag is written. Every jax-using
 subpackage calls :func:`ensure_x64` at import (idempotent, one-shot), and
 code that merely depends on the flag being set calls :func:`assert_x64`.
 
-Also installs the persistent XLA compilation cache: compile times for
-large-batch TPU programs run to minutes, a persistent cache makes them
-once-ever per (shape, K) instead of per process.
+Also points JAX's persistent compilation cache at one fixed directory, so a
+program compiles once per (shape, K) and not once per process. Where
+``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this module
+sets no directory; otherwise the cache lives at ``<checkout>/.jax_cache``.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Mapping, Optional
 
 _configured = False
+
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compile_cache_dir(environ: Mapping[str, str]) -> Optional[str]:
+    """The cache directory this module sets, or ``None`` when the
+    environment already names one."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return DEFAULT_CACHE_DIR
 
 
 def ensure_x64() -> None:
@@ -30,17 +44,10 @@ def ensure_x64() -> None:
 
     jax.config.update("jax_enable_x64", True)
 
-    cache_dir = os.environ.get(
-        "PYKMER_TPU_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/pykmer_tpu_xla"),
-    )
-    if cache_dir and cache_dir != "0":
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        except Exception:
-            pass
+    cache_dir = compile_cache_dir(os.environ)
+    if cache_dir is not None:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     _configured = True
 
 

@@ -30,7 +30,7 @@ from .config import (
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pykmer-tpu",
-        description="TPU-native k-mer counting and sample comparison",
+        description="accelerator-native k-mer counting and sample comparison",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -43,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-overwrite", action="store_true")
     p.add_argument("--chunk-windows", type=int, default=None,
                    help="window starts per device chunk "
-                        "(default: 16M on TPU, 4M elsewhere)")
+                        "(default: 4M on the CPU backend, 64M on accelerators)")
     p.add_argument("--accumulate", choices=["auto", "device", "host"],
                    default="auto")
     p.add_argument("--no-verify", action="store_true")
@@ -103,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=("auto", "host", "device"),
                    default="auto",
                    help="auto: host popcount engine for small N (no device "
-                        "round-trip), device MXU engine at fan-in scale")
+                        "round-trip), device matmul engine at fan-in scale")
     p.add_argument("--quiet", action="store_true")
 
     p = sub.add_parser("distance", help="Jaccard distances + NJ tree from .kma")

@@ -19,6 +19,16 @@ DEFAULT_MAX_COUNT = 255
 DEFAULT_BLOCK_SIZE = 100_000_000
 DEFAULT_THREADS = 4
 MAX_VAL = 255  # uint8 saturation ceiling (reference tools.py:217)
+# window starts per device chunk: XLA:CPU compile time grows with the batch,
+# so the CPU backend keeps small chunks; accelerators take the size that
+# gave the most windows/s through programs A + B at both K=15 and K=17 on an
+# H100 (PERF.md, "Program A | program B per chunk")
+CPU_CHUNK_WINDOWS = 1 << 22
+DEVICE_CHUNK_WINDOWS = 1 << 26
+# device bytes per chunk window that the per-chunk steps may keep in flight:
+# one K=17 chunk measured ~34 B/window above the plane (peak_bytes_in_use on
+# an H100), and the K >= 17 dispatch loop lets up to five chunks stack up
+STEP_BYTES_PER_WINDOW = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,24 +37,18 @@ class IndexConfig:
 
     kmer_len: int
     # host→device streaming: number of window starts per device chunk.
-    # ``None`` resolves per backend at run start (resolve_chunk_windows):
-    # 16M windows on TPU — fewer dispatch/upload round-trips dominate there
-    # (measured 9.1 s → 5.1 s ingest at 840 Mbp vs 4M windows) — and 4M
-    # elsewhere (XLA CPU compile time scales with batch size).
+    # ``None`` resolves per backend at run start (resolve_chunk_windows).
     chunk_windows: Optional[int] = None
     # kmer codes buffered on device before a dense-array accumulate
     flush_every: int = DEFAULT_FLUSH_EVERY
     min_frag_size: int = DEFAULT_MIN_FRAG_SIZE
     max_frag_size: int = DEFAULT_MAX_FRAG_SIZE
-    # device strategy: "auto" | "device" (HBM-resident dense array) | "host"
-    # (host-RAM dense array for count spaces exceeding HBM, e.g. K=17 1-chip)
+    # device strategy: "auto" | "device" (device-resident dense array) |
+    # "host" (host-RAM dense array for count spaces exceeding device memory);
+    # "auto" resolves through accumulate_strategy
     accumulate: str = "auto"
-    # accumulate kernel: "auto" picks the Pallas tile-sweep on TPU for large
-    # count spaces (XLA scatter lowers to a serial loop there) and the XLA
-    # sort+scan path elsewhere
-    kernel: str = "auto"
-    # final device→host fetch: "auto" uses 4-bit packed readback for large
-    # arrays over slow host links; "raw"/"packed" force a path
+    # final device→host fetch: "auto" prices the packed planes and the sparse
+    # token stream by bytes moved; "raw"/"packed"/... force a path
     readback: str = "auto"
 
     def __post_init__(self) -> None:
@@ -65,25 +69,21 @@ def resolve_chunk_windows(
     """Replace a ``chunk_windows=None`` placeholder with the backend default
     (called once at each indexing entry point, before any framing).
 
+    The CPU backend takes ``CPU_CHUNK_WINDOWS`` (XLA:CPU compile time grows
+    with the batch); accelerators take ``DEVICE_CHUNK_WINDOWS``.
     ``input_hint_bytes`` (raw input file size, when known) clamps the
     default DOWN to the next power of two covering the input: a tiny
-    fixture otherwise pads to the full 16M-window TPU chunk — >99.9%
-    sentinels sorted and swept per chunk, plus a fresh device-program
-    compile at a shape the input never needed. Explicit user values are
-    honoured as-is; power-of-two clamping keeps the compile-cache key set
-    small (one per octave, floor 2^16)."""
+    fixture otherwise pads to a full chunk — >99.9% sentinels sorted and
+    applied per chunk, plus a fresh device-program compile at a shape the
+    input never needed. Explicit user values are honoured as-is;
+    power-of-two clamping keeps the compile-cache key set small (one per
+    octave, floor 2^16)."""
     if config.chunk_windows is not None:
         return config
     import jax
 
-    cw = (1 << 24) if jax.default_backend() == "tpu" else (1 << 22)
-    if jax.default_backend() == "tpu" and 4 ** config.kmer_len // 2 > (1 << 30):
-        # multi-sub-plane count spaces (K >= 16): every chunk sweeps EVERY
-        # sub-plane (a full-plane HBM pass + 16K-tile grid each), so bigger
-        # chunks amortise it — measured K=17 dispatch 49 s -> 8.7 s at 2^26
-        # windows (the +18% tail-padding sentinels are far cheaper than the
-        # extra plane passes)
-        cw = 1 << 26
+    cw = CPU_CHUNK_WINDOWS if jax.default_backend() == "cpu" \
+        else DEVICE_CHUNK_WINDOWS
     if input_hint_bytes is not None and input_hint_bytes > 0:
         # window count <= base count <= raw byte count
         need = 1 << 16
@@ -91,6 +91,36 @@ def resolve_chunk_windows(
             need <<= 1
         cw = min(cw, need)
     return dataclasses.replace(config, chunk_windows=cw)
+
+
+def device_bytes_limit() -> Optional[int]:
+    """Memory the first local device grants this process, or ``None`` when
+    the backend reports no limit (the CPU backend)."""
+    import jax
+
+    stats = jax.local_devices()[0].memory_stats()
+    return stats.get("bytes_limit") if stats else None
+
+
+def accumulate_strategy(
+    requested: str, kmer_len: int, chunk_windows: int,
+    bytes_limit: Optional[int],
+) -> str:
+    """Resolve ``IndexConfig.accumulate`` for one run.
+
+    Count spaces up to 4 GiB (K <= 15) always stay on the device. Larger
+    ones (K = 17: an 8 GiB folded plane) stay there only when the device
+    reports a memory limit that holds the folded plane plus the in-flight
+    step working sets; a device that reports no limit is assumed to hold
+    none of it, so the plane goes to host RAM."""
+    if requested != "auto":
+        return requested
+    data_size = 4**kmer_len
+    if data_size <= (4 << 30):
+        return "device"
+    need = data_size // 2 + STEP_BYTES_PER_WINDOW * chunk_windows
+    return "device" if bytes_limit is not None and need <= bytes_limit \
+        else "host"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -58,7 +58,7 @@ def frag_size_autotune(
 ) -> int:
     """Reproduce the reference's fragment-size autotuner (tools.py:169-183).
 
-    The TPU pipeline does not process by fragments (the count space is
+    The device pipeline does not process by fragments (the count space is
     range-sharded over the mesh instead), but the chosen value is recorded in
     `.kin.json` and must be value-identical.
     """

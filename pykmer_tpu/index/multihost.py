@@ -11,17 +11,17 @@ ONE index build:
    sequence-parallel analog of halo exchange at host granularity;
 2. each process accumulates its slice into a full folded partial plane on
    its LOCAL devices (parallel/histogram: encode → all_to_all → saturating
-   accumulate over the local mesh, so ICI carries the count-space
-   exchange), checkpointing per-host progress every ``checkpoint_every``
-   steps (resume needs no coordination: the per-host loops are independent
-   until the final combine);
+   accumulate over the local mesh, so the host's card-to-card links carry
+   the count-space exchange), checkpointing per-host progress every
+   ``checkpoint_every`` steps (resume needs no coordination: the per-host
+   loops are independent until the final combine);
 3. the per-host partial planes REDUCE-SCATTER over the GLOBAL mesh with the
    exact saturating merge — ``min(sum_h min(c_h,255), 255) ==
    min(sum_h c_h, 255)`` (uint16 psum across the 'host' axis + clip; exact
    for ≤ 257 hosts) — in bounded slabs, each host keeping only its owner
    pieces (parallel/multihost.combine_partials_sharded; per-device memory
-   math in make_slab_combine — the r2 replicated combine needed 3x
-   fold_size per device, over HBM at K=17);
+   math in make_slab_combine — a replicated combine would need 3x
+   fold_size per device);
 4. sharded write: every host unfolds its owner pieces (two contiguous
    regions each, ops.readback.unfold_piece) and pwrites them into the
    shared tmp file; process 0 stamps metadata (global stats via allgather,
@@ -487,7 +487,7 @@ def create_fasta_index_multihost(
     del dense, state
     assert partial.shape == (fold_size,) and partial.dtype == np.uint8
 
-    # --- 3. global saturating reduce-scatter combine (DCN) ------------------
+    # --- 3. global saturating reduce-scatter combine (cross-host) -----------
     from jax.experimental import multihost_utils
 
     from ..formats.header import fast_counts256

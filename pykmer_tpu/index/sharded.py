@@ -57,7 +57,7 @@ def create_fasta_index_sharded(
     if config.chunk_windows is None:
         # sharded steps route a whole chunk through an all_to_all whose
         # capacity scales with chunk_windows; keep the per-step footprint
-        # bounded rather than taking the single-chip TPU default (16M)
+        # bounded rather than taking the single-chip accelerator default
         import dataclasses as _dc
 
         config = _dc.replace(config, chunk_windows=1 << 22)
@@ -133,47 +133,45 @@ def create_fasta_index_sharded(
         state = init_fn()
 
     from ..ops.readback import unfold_canonical
-    from ..utils.keepalive import d2h_keepalive
 
-    with d2h_keepalive():
-        # fully-async dispatch; num_kmers / max_bucket stay on-device and
-        # are fetched only at checkpoints and at the end
-        for s in range(start_step, n_steps):
-            chunks = shard_batch_chunks_packed(
-                padded, kmer_len, config.chunk_windows, rows, s
+    # fully-async dispatch; num_kmers / max_bucket stay on-device and
+    # are fetched only at checkpoints and at the end
+    for s in range(start_step, n_steps):
+        chunks = shard_batch_chunks_packed(
+            padded, kmer_len, config.chunk_windows, rows, s
+        )
+        state = step_fn(state, chunks)
+        if verbose and n_steps > 1:
+            print(f"  dispatched step {s + 1}/{n_steps}")
+        if checkpoint_every and (s + 1) % checkpoint_every == 0 and s + 1 < n_steps:
+            multihost.save_shard_checkpoint(
+                tmp, np.asarray(state[0]), next_step=s + 1,
+                num_kmers=int(state[1]), max_bucket=int(state[2]),
+                meta={
+                    "kmer_len": kmer_len,
+                    "chunk_windows": config.chunk_windows,
+                    "rows": rows,
+                    "input_size": os.path.getsize(input_file),
+                },
             )
-            state = step_fn(state, chunks)
-            if verbose and n_steps > 1:
-                print(f"  dispatched step {s + 1}/{n_steps}")
-            if checkpoint_every and (s + 1) % checkpoint_every == 0 and s + 1 < n_steps:
-                multihost.save_shard_checkpoint(
-                    tmp, np.asarray(state[0]), next_step=s + 1,
-                    num_kmers=int(state[1]), max_bucket=int(state[2]),
-                    meta={
-                        "kmer_len": kmer_len,
-                        "chunk_windows": config.chunk_windows,
-                        "rows": rows,
-                        "input_size": os.path.getsize(input_file),
-                    },
-                )
 
-        dense, nk_dev, maxb_dev = state
-        num_kmers = int(nk_dev)
-        if int(maxb_dev) > step_fn.capacity:
-            raise RuntimeError(
-                f"shard bucket overflow ({int(maxb_dev)} > {step_fn.capacity}): "
-                f"re-run with a larger capacity_factor (got {capacity_factor}) "
-                f"or smaller chunk_windows"
-            )
-        if num_kmers == 0:
-            raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
-        if total_bp >= PRINT_EVERY:
-            timer.update(total_bp)
+    dense, nk_dev, maxb_dev = state
+    num_kmers = int(nk_dev)
+    if int(maxb_dev) > step_fn.capacity:
+        raise RuntimeError(
+            f"shard bucket overflow ({int(maxb_dev)} > {step_fn.capacity}): "
+            f"re-run with a larger capacity_factor (got {capacity_factor}) "
+            f"or smaller chunk_windows"
+        )
+    if num_kmers == 0:
+        raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
+    if total_bp >= PRINT_EVERY:
+        timer.update(total_bp)
 
-        folded_np = interleaved_to_flat(np.asarray(dense))
+    folded_np = interleaved_to_flat(np.asarray(dense))
     # fused tail (see index/indexer.py): expand the folded plane into a
     # hugepage RAM plane, then one streamed pwrite to the tmp file (file
-    # mmaps are avoided — page faults run ~3 MB/s in this environment);
+    # mmaps are avoided: their page faults are slow);
     # stats from the half-size folded plane
     from ..formats.header import fast_counts256
     from ..ops.readback import _pwrite_all

@@ -19,7 +19,7 @@ accept arbitrary requests while taking the fast path for the bulk.
 
 The reference has no analog (its outputs go through plain buffered writes,
 tools.py:333-342 sparse preallocation); this is host-runtime glue for the
-TPU pipeline's 4^K-byte outputs and merge-time streaming reads.
+device pipeline's 4^K-byte outputs and merge-time streaming reads.
 """
 
 from __future__ import annotations

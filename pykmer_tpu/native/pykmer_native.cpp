@@ -2,8 +2,8 @@
 //
 // The reference's only native component is the external htslib `bgzip`
 // binary (README.md:26-28); its Python hot loops (per-base FASTA decode,
-// indexer.py:45-99) are replaced here by C++ so the host side can keep TPU
-// chips fed. Exposed via ctypes (see pykmer_tpu/io/native.py).
+// indexer.py:45-99) are replaced here by C++ so the host side can keep the
+// device fed. Exposed via ctypes (see pykmer_tpu/io/native.py).
 //
 // Functions:
 //   fasta_decode            one-pass FASTA parse: bytes -> base codes +
@@ -851,7 +851,7 @@ void unfold_canonical_piece(const uint8_t* folded_piece, uint8_t* primary,
 // 256-bin value histogram, and (c) records local indices of escape-marker
 // cells (value == 2^W - 1). Replaces the separate unpack -> flatnonzero ->
 // counts -> unfold passes (saves ~1.6 GB of memory traffic per GiB-scale
-// readback on the 2-core host). Single-threaded per call: the fetch pipeline
+// readback). Single-threaded per call: the fetch pipeline
 // runs one slice per worker. Returns the total escape count; only the first
 // `esc_cap` indices are stored (caller re-runs with a larger buffer on
 // overflow — escapes are <1% in the auto-picked pack mode).
@@ -1416,8 +1416,8 @@ long fasta_decode_joined_packed_mt(const uint8_t* data, long n, long k,
 // tools.py:439-493): per streamed block, each sample's bytes reduce to a
 // 1-bit validity plane (count within [lo, hi]); pair contingencies are then
 // AND+popcount passes over the bit planes. For small N this beats the device
-// engine's upload round-trip (and needs no TPU at all — a cold CLI merge
-// skips JAX entirely); the device MXU path still wins at large N.
+// engine's upload round-trip (and needs no accelerator at all — a cold CLI
+// merge skips JAX entirely); the device matmul path still wins at large N.
 
 #if defined(__x86_64__)
 // bit i of bits[j] = (data[8j+i] in [lo, hi]); little-endian bit order

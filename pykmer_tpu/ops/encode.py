@@ -13,12 +13,10 @@ prototype (tools.py:562-675). :func:`canonical_codes_packed` (K <= 15)
 skips the unpack entirely: it treats the packed upload plane as a
 big-endian bit stream, extracts each window's 2K-bit field from a uint32
 pair, and derives the reverse complement with an in-register 2-bit-group
-reversal butterfly. Production A/B of the full chained step on v5e picks
-the default per chunk variant: packed wins ALL-VALID chunks (49.8 vs
-54.6 ms/16.7M windows), slice wins MASKED chunks (50.5 vs 55.7 ms); an
-earlier "0.2 ms packed" figure was an XLA constant-folding artifact (see
-docs/PERFORMANCE.md). ``PYKMER_TPU_ENCODER=packed|slice`` forces one for
-both variants; they are bit-exact and tested against each other.
+reversal butterfly. The default per chunk variant is packed for ALL-VALID
+chunks and slice for MASKED chunks (chosen on the previous accelerator;
+not yet re-timed on the GPU). ``PYKMER_TPU_ENCODER=packed|slice`` forces
+one for both variants; they are bit-exact and tested against each other.
 """
 
 from __future__ import annotations
@@ -49,14 +47,14 @@ def use_packed_encoder(kmer_len: int, masked: bool) -> bool:
     per-variant defaults from production A/B; PYKMER_TPU_ENCODER=packed|
     slice forces one for both variants). Resolve this OUTSIDE lru-cached
     program builders and pass the bool in, so the env var participates in
-    the build cache key (the PYKMER_TPU_SWEEP pattern, ADVICE r2)."""
+    the build cache key."""
     import os
 
     env = os.environ.get("PYKMER_TPU_ENCODER", "")
     if env not in ("", "packed", "slice"):
         # a typo'd override would otherwise silently read as 'slice' and be
         # indistinguishable from the per-variant default during an A/B
-        # (ADVICE r4) — same explicit-values rule as PYKMER_TPU_SWEEP
+        # (ADVICE r4)
         raise ValueError(
             f"PYKMER_TPU_ENCODER must be 'packed' or 'slice' (or unset), "
             f"got {env!r}"
@@ -99,10 +97,11 @@ def fold_codes(codes: jax.Array, kmer_len: int) -> jax.Array:
     odd K at most one of each pair {u, M - u} is canonical (both would force
     u == revcomp(u)), so storing counts at the folded position is lossless:
     the host expands with :func:`pykmer_tpu.ops.readback.unfold_canonical`.
-    Halves dense HBM, per-batch sweep traffic, and readback bytes — and
-    folded codes are uniformly distributed over [0, 4^K/2) (canonical codes
-    skew low; the fold flattens the triangular density), which balances
-    accumulate tiles. Sentinel 4^K maps to the folded sentinel 4^K/2.
+    Halves dense device memory, per-batch apply traffic, and readback bytes
+    — and folded codes are uniformly distributed over [0, 4^K/2) (canonical
+    codes skew low; the fold flattens the triangular density), which
+    balances accumulate tiles. Sentinel 4^K maps to the folded sentinel
+    4^K/2.
     """
     dt = codes.dtype
     m = jnp.asarray(4**kmer_len - 1, dt)
@@ -160,7 +159,7 @@ def canonical_codes_packed(
     """Folded canonical codes straight from the PACKED upload planes.
 
     The shifted-slice encoder (:func:`canonical_codes`) materialises K
-    full-size int32 slices (~45 VPU ops + ~15 HBM passes per window at
+    full-size int32 slices (~45 vector ops + ~15 memory passes per window at
     K=15). This formulation keeps the chunk as a big-endian bit stream and
     extracts each window's 2K-bit field with two uint32 words and a shift
     (~6 ops), derives the reverse complement in-register via a 2-bit-group

@@ -52,6 +52,39 @@ def oracle_canonical_codes(codes: np.ndarray, kmer_len: int) -> np.ndarray:
     return np.asarray(out, dtype=np.int64)
 
 
+def oracle_canonical_codes_vec(
+    codes: np.ndarray, kmer_len: int, block: int = 1 << 26
+) -> np.ndarray:
+    """Vectorised :func:`oracle_canonical_codes`: the same codes in the same
+    order, computed ``block`` windows at a time with plain NumPy, so that
+    genome-sized inputs stay within seconds. Codes come back unsigned:
+    uint32 while 2K bits fit it (K <= 15), uint64 beyond."""
+    k = kmer_len
+    dt = np.uint32 if 2 * k <= 32 else np.uint64
+    n_windows = codes.shape[0] - k + 1
+    out: List[np.ndarray] = [np.empty(0, dtype=dt)]
+    for lo in range(0, max(n_windows, 0), block):
+        m = min(n_windows - lo, block)
+        seg = codes[lo : lo + m + k - 1]
+        invalid = seg >= 4
+        base = np.where(invalid, 0, seg).astype(dt)
+        comp = dt(3) - base
+        fwd = np.zeros(m, dtype=dt)
+        rev = np.zeros(m, dtype=dt)
+        tmp = np.empty(m, dtype=dt)
+        for p in range(k):
+            # forward: base p is digit k-1-p; reverse complement: digit p
+            np.left_shift(fwd, dt(2), out=fwd)
+            fwd |= base[p : p + m]
+            np.left_shift(comp[p : p + m], dt(2 * p), out=tmp)
+            rev |= tmp
+        bad = np.concatenate(([0], np.cumsum(invalid, dtype=np.int64)))
+        ok = bad[k : k + m] == bad[:m]
+        np.minimum(fwd, rev, out=fwd)
+        out.append(fwd[ok])
+    return np.concatenate(out)
+
+
 def oracle_count_stream(
     code_stream: Sequence[np.ndarray],
     kmer_len: int,

@@ -1,4 +1,4 @@
-"""Sharded N×N comparison: per-chip MXU contingency partials + psum.
+"""Sharded N×N comparison: per-chip matmul contingency partials + psum.
 
 The merge engine's V·Vᵀ matmul (merge/merger.py) over cell-space shards:
 each chip computes the N×N partial over its slice of the count space, one
@@ -25,7 +25,7 @@ def make_sharded_merge_step(mesh: Mesh, n: int) -> Callable:
     """Sharded variant of the merge engine's per-block contingency step
     (merge/merger.py:_make_block_step): the bit-packed validity planes of a
     cell-space block are sharded over the mesh's 'shards' axis, each chip
-    unpacks its slice and runs the int8 V·Vᵀ MXU matmul, one psum yields the
+    unpacks its slice and runs the int8 V·Vᵀ matmul, one psum yields the
     block's full N×N which adds into a replicated donated int64 accumulator.
 
     Returns jitted ``step(acc [n,n] int64 replicated, bits [n, S, b/8/S])``.

@@ -1,11 +1,12 @@
 """Count-space-sharded saturating histogram (the multi-chip indexing core).
 
 Layout: counts live in the *folded* half-space ``w = min(c, 4^K-1-c)`` (see
-ops.encode.fold_codes — lossless for odd K, halves HBM/traffic/readback, and
-folded codes are uniformly distributed). With S = n_shards (power of two),
-folded code ``w`` lives on shard ``w & (S-1)`` at local index
-``w >> log2(S)`` — low-bit interleaving keeps shards balanced. The global
-folded plane is the column-major interleave of the per-shard arrays (see
+ops.encode.fold_codes — lossless for odd K, halves device
+memory/traffic/readback, and folded codes are uniformly distributed). With
+S = n_shards (power of two), folded code ``w`` lives on shard ``w & (S-1)``
+at local index ``w >> log2(S)`` — low-bit interleaving keeps shards
+balanced. The global folded plane is the column-major interleave of the
+per-shard arrays (see
 :func:`interleaved_to_flat`); the host expands it to the 4^K dense array
 with ops.readback.unfold_canonical.
 
@@ -17,7 +18,7 @@ Per step, per chip (inside shard_map over mesh ('data','shards')):
      (static shapes; overflow is *detected* and surfaced, never silently
      dropped), pad with the local sentinel;
   4. ``all_to_all`` along 'shards' — each chip receives only codes it owns,
-     already bucket-sorted (ICI traffic = one code per k-mer);
+     already bucket-sorted (interconnect traffic = one code per k-mer);
   5. ``all_gather`` along 'data' so dense replicas apply every row's updates
      and stay bit-identical;
   6. saturating accumulate into the local dense shard (ops.histogram).
@@ -114,8 +115,8 @@ def make_sharded_accumulate(
     chunk_windows: int,
     capacity_factor: float = 2.0,
 ) -> Tuple[Callable, Callable]:
-    """Env-sensitive encoder resolved outside the build cache (the
-    PYKMER_TPU_SWEEP pattern — ops.encode.use_packed_encoder)."""
+    """Env-sensitive encoder resolved outside the build cache, so the
+    choice is part of the cache key (ops.encode.use_packed_encoder)."""
     from ..ops.encode import use_packed_encoder
 
     return _make_sharded_accumulate_cached(
@@ -153,25 +154,10 @@ def _make_sharded_accumulate_cached(
     capacity = min(capacity, chunk_windows)
     span = chunk_windows + kmer_len - 1
     dt = code_dtype(kmer_len)
-    # local indices always fit int32 once n_shards >= 8 even at K=17;
-    # keep the code dtype until after the owner split to stay exact
+    # local indices fit int32 once n_shards >= 8 even at K=17; beyond that
+    # the local plane is indexed in int64. Keep the code dtype until after
+    # the owner split to stay exact.
     local_dt = jnp.int32 if local_size <= 2**31 - 1 else jnp.int64
-    if local_dt == jnp.int64 and mesh.devices.flat[0].platform == "tpu":
-        # proven on the real toolchain (tests_hw/test_tpu_sharded.py): the
-        # TPU X64-rewrite pass rejects gathers whose operand exceeds 2^31
-        # elements ("indices exceed 32-bits"), so a >int32 local plane can
-        # never lower. Fail at build time with the fix instead of an
-        # HLO-level compiler error mid-job. (CPU meshes execute int64
-        # gathers fine — the virtual-mesh certification relies on that.)
-        need = 1
-        while fold_size // need > 2**31 - 1:
-            need *= 2
-        raise ValueError(
-            f"sharded accumulate: local plane of {local_size:,} cells "
-            f"(K={kmer_len}, n_shards={n_shards}) exceeds int32 indexing, "
-            f"which TPU lowering rejects — use n_shards >= {need}, or the "
-            f"single-chip indexer whose sub-plane layout stays int32-local"
-        )
 
     from ..ops.encode import canonical_codes_packed, unpack_base_2bit_mask
 
@@ -190,20 +176,15 @@ def _make_sharded_accumulate_cached(
             chunk = unpack_base_2bit_mask(bases_row[0], mask_row[0], span)
             codes = fold_codes(canonical_codes(chunk, kmer_len), kmer_len)
         valid = codes < fold_size
-        # int32 accumulate (chunks < 2^31 windows): TPU emulates int64 lane
-        # math — the int64 reduction measured 7.4 ms per 16.7M windows.
-        # int64 codes keep int64: the bool-of-int64-compare -> int32-reduce
-        # pattern crashes this TPU compiler (see indexer tail()).
-        num_valid = valid.sum(
-            dtype=jnp.int32 if dt == jnp.int32 else jnp.int64
-        ).astype(jnp.int64)
+        # chunks are < 2^31 windows, so an int32 count is exact
+        num_valid = valid.sum(dtype=jnp.int32).astype(jnp.int64)
 
         # key: bucket-major (owner, local); invalid windows past all buckets
         owner = (codes & (n_shards - 1)).astype(jnp.int32)
         local = (codes >> shard_bits).astype(local_dt)
         key = owner.astype(dt) * local_size + local
         key = jnp.where(valid, key, fold_size)
-        key = sort_codes_fast(key)  # unstable unsigned: 3.4x (ops.histogram)
+        key = sort_codes_fast(key)
 
         # bucket offsets via searchsorted on the S+1 bucket boundaries
         bounds = (jnp.arange(n_shards + 1, dtype=dt)) * local_size
@@ -277,7 +258,7 @@ def _make_sharded_accumulate_cached(
     # AOT surface: the underlying jit + shardings, so callers can
     # .lower(...).compile() the step at production shapes without
     # allocating the (possibly multi-GB) dense plane — used for compile
-    # warmup and for real-toolchain certification (tests_hw)
+    # warmup
     step_fn.jitted = step_jit
     step_fn.dense_sharding = dense_sharding
     step_fn.chunk_sharding = chunk_sharding

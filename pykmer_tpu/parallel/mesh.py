@@ -10,8 +10,10 @@ Axes:
   dense shard and split the sequence batch; updates are exchanged with an
   all-gather so replicas stay bit-identical.
 
-Both axes ride ICI on a pod slice; multi-host runs put the host boundary on
-``data`` so the only DCN traffic is input spraying.
+Both axes stay on the host's card-to-card links (NVLink joins every card to
+every other at one rate, so the mesh follows the algorithm alone);
+multi-host runs put the host boundary on ``data`` so the only cross-host
+traffic is input spraying.
 """
 
 from __future__ import annotations

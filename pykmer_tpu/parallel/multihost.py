@@ -1,11 +1,12 @@
 """Multi-host orchestration (jax.distributed glue).
 
 Replaces the reference's "filesystem as interconnect" model (SURVEY §2.3):
-hosts join one jax.distributed job; the global mesh puts the host boundary on
-the 'data' axis so chip-to-chip code exchange stays on ICI and only input
-spraying crosses DCN. Each host feeds its own slice of the input stream
-(every host reads its local FASTA portion), and the saturating-histogram
-semantics make the cross-host merge exact:
+hosts join one jax.distributed job; the global mesh puts the host boundary
+on the 'data' axis so chip-to-chip code exchange stays on the host's
+card-to-card links and only input spraying crosses the network. Each host
+feeds its own slice of the input stream (every host reads its local FASTA
+portion), and the saturating-histogram semantics make the cross-host merge
+exact:
 
     min(sum_h min(c_h, 255), 255) == min(sum_h c_h, 255)
 
@@ -167,8 +168,8 @@ def make_slab_combine(gmesh):
     """jitted saturating cross-host combine of one slab, output sharded
     over ALL devices (host-major) — XLA lowers the sum + constraint to a
     reduce-scatter, so no device ever materialises the full slab in uint16
-    (the r2 replicated combine needed fold_size x u16 + u8 per device:
-    24 GiB at K=17 — over v5e's 16 GiB HBM; VERDICT r2 #3c).
+    (a replicated combine would need fold_size x u16 + u8 per device:
+    24 GiB at K=17).
 
     Per-device peak for a slab of S cells on an (H, D) mesh:
     S/D u8 in + ~2*S/D u16 working + S/(H*D) u8 out  (~3 GiB at S=2^30,

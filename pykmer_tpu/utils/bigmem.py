@@ -24,7 +24,7 @@ here (18 s to touch 850 MB) and the madvise kicks khugepaged into
 background collapses that stall subsequent populates further.
 
 No reference analog (the reference never allocates at this scale in one
-process); this is host-runtime glue for the TPU pipeline's GiB-scale
+process); this is host-runtime glue for the device pipeline's GiB-scale
 decode/readback buffers.
 """
 

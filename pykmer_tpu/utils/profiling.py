@@ -1,7 +1,7 @@
 """Profiling hooks.
 
 The reference's profiling story is `pypy -m cProfile` plus the Timer's bp/s
-fields (README.md:255-259, tools.py:24-64). TPU equivalent: wrap pipeline
+fields (README.md:255-259, tools.py:24-64). Device counterpart: wrap pipeline
 sections in `jax.profiler` traces (viewable in TensorBoard/Perfetto) while
 keeping the same durable Timer fields in `.kin.json`.
 """

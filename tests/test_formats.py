@@ -156,3 +156,33 @@ def test_resolve_chunk_windows_clamps_to_input():
     explicit = resolve_chunk_windows(
         IndexConfig(kmer_len=5, chunk_windows=1024), input_hint_bytes=10)
     assert explicit.chunk_windows == 1024
+
+
+@pytest.mark.parametrize("bytes_limit,want", [
+    (None, "host"),  # the CPU backend reports no limit
+    (8 << 30, "host"),  # an 8 GiB folded plane leaves no step headroom
+    (60 << 30, "device"),  # a card's share holds the plane and the steps
+])
+def test_accumulate_strategy_from_device_memory(monkeypatch, bytes_limit,
+                                                want):
+    """K=17 stays on the device only where the device reports memory for
+    the folded plane plus the step working sets; K <= 15 always does."""
+    import jax
+
+    from pykmer_tpu import config
+
+    class FakeDevice:
+        def memory_stats(self):
+            if bytes_limit is None:
+                return None
+            return {"bytes_limit": bytes_limit}
+
+    monkeypatch.setattr(jax, "local_devices", lambda: [FakeDevice()])
+    assert config.device_bytes_limit() == bytes_limit
+    got = config.accumulate_strategy(
+        "auto", 17, 1 << 24, config.device_bytes_limit())
+    assert got == want
+    assert config.accumulate_strategy(
+        "auto", 15, 1 << 24, config.device_bytes_limit()) == "device"
+    assert config.accumulate_strategy(
+        "host", 15, 1 << 24, config.device_bytes_limit()) == "host"

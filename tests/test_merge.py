@@ -1,4 +1,4 @@
-"""Merge engine: device MXU contingency vs oracle vs the executed reference."""
+"""Merge engine: device int8 contingency vs oracle vs the executed reference."""
 
 import json
 import os

@@ -387,7 +387,7 @@ def test_packed_encoder_tiny_spans(rng, n_windows):
 
 def test_encoder_env_override_validated(monkeypatch):
     """A typo'd PYKMER_TPU_ENCODER must raise, not silently read as
-    'slice' (ADVICE r4) — same explicit-values rule as PYKMER_TPU_SWEEP."""
+    'slice' (ADVICE r4)."""
     from pykmer_tpu.ops.encode import use_packed_encoder
 
     monkeypatch.setenv("PYKMER_TPU_ENCODER", "packed")

@@ -11,6 +11,7 @@ from pykmer_tpu import testgen
 from pykmer_tpu.formats import kin as kinfmt
 from pykmer_tpu.oracle import (
     oracle_canonical_codes,
+    oracle_canonical_codes_vec,
     oracle_count_stream,
     oracle_index_arrays,
     oracle_write_index,
@@ -32,6 +33,21 @@ def test_invalid_windows_dropped():
     out = oracle_canonical_codes(codes, 3)
     # only window at pos 3 (2,3,0)=GTA is N-free
     assert out.tolist() == [44]
+
+
+@pytest.mark.parametrize("kmer_len", [3, 5, 7, 9, 11, 15, 17])
+def test_vectorised_canonical_codes_match_loop(rng, kmer_len):
+    """The vectorised oracle (the reference the GPU smoke run compares
+    genome-sized outputs with) equals the per-window loop, across N runs,
+    block boundaries and inputs shorter than K."""
+    seq = rng.integers(0, 4, size=3000).astype(np.uint8)
+    seq[rng.integers(0, 3000, size=40)] = 4  # scattered Ns
+    seq[1200:1230] = 4  # an N run
+    for codes in (seq, seq[: kmer_len - 1], seq[:kmer_len]):
+        want = oracle_canonical_codes(codes, kmer_len)
+        got = oracle_canonical_codes_vec(codes, kmer_len, block=257)
+        assert got.dtype == (np.uint32 if kmer_len <= 15 else np.uint64)
+        assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("kmer_len", [3, 5])

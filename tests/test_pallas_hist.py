@@ -1,77 +1,53 @@
-"""Pallas tile-sweep accumulate (interpret mode on CPU) vs oracle."""
+"""Sub-plane (K >= 17 layout) saturating accumulate vs the oracle, and the
+readback paths that consume the sub-plane tuple."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from pykmer_tpu.oracle import oracle_count_stream
-from pykmer_tpu.ops.pallas_hist import saturating_accumulate_tiled
 
 
-@pytest.mark.parametrize("tile_rows,block", [(8, 8), (16, 32)])
-def test_pallas_accumulate_matches_oracle(rng, tile_rows, block):
-    kmer_len = 7  # D = 16384 cells = 128 rows x 128 lanes
-    d = 4**kmer_len
-    dense = jnp.zeros(d, dtype=jnp.uint8)
-    batches = []
-    for _ in range(3):
-        codes = rng.integers(0, d, size=1000).astype(np.int64)
-        # hotspots to cross saturation + empty tiles
-        codes[:300] = rng.integers(0, 64, size=300)
-        batches.append(codes)
-        padded = np.concatenate([codes, np.full(24, d, dtype=np.int64)])
-        dense, nvalid = saturating_accumulate_tiled(
-            dense, jnp.asarray(padded), sentinel=d,
-            tile_rows=tile_rows, block=block, interpret=True,
-        )
-        assert int(nvalid) == codes.shape[0]
-    want = oracle_count_stream(batches, kmer_len, flush_every=10**9)
-    assert np.array_equal(np.asarray(dense), want)
+def _batch(rng, kind, total):
+    """One code batch: 'mixed' has a saturating hotspot, codes in every
+    sub-plane (so each sub-plane sees codes below and above its range) and
+    sentinels; 'empty' has no codes; 'all_sentinel' only sentinels."""
+    if kind == "empty":
+        return np.empty(0, dtype=np.int64)
+    if kind == "all_sentinel":
+        return np.full(64, total, dtype=np.int64)
+    codes = rng.integers(0, total, size=1500).astype(np.int64)
+    codes[:400] = rng.integers(0, 8, size=400)  # saturation hotspot
+    codes[400:420] = total  # sentinels (ignored)
+    codes[420:700] = rng.integers(total - 16, total, size=280)  # last plane
+    return codes
 
 
-def test_pallas_accumulate_int8_mxu_matches_bf16(rng):
-    """int8-MXU one-hot variant (v5e runs int8 at 2x bf16 MAC rate) must be
-    bit-identical to the bf16/f32 path, saturation included."""
-    from pykmer_tpu.ops.pallas_hist import accumulate_sorted_pallas
+@pytest.mark.parametrize("kind", ["mixed", "empty", "all_sentinel"])
+@pytest.mark.parametrize("n_planes", [2, 4])
+def test_xla_accumulate_sorted_planes_matches_oracle(rng, n_planes, kind):
+    """The XLA sub-plane apply equals the flush-faithful oracle: codes
+    below a sub-plane must be dropped there (not wrapped into its last
+    cell), codes past the last plane are ignored, counts saturate at 255."""
+    from pykmer_tpu.ops.histogram import (
+        accumulate_sorted_planes,
+        dense_plane_shape,
+    )
 
     kmer_len = 7
-    d = 4**kmer_len
-    codes = rng.integers(0, d, size=4096).astype(np.int64)
-    codes[:2000] = rng.integers(0, 4, size=2000)  # saturating hotspot
-    sorted_codes = jnp.asarray(np.sort(codes).astype(np.int32))
-    dense_a = jnp.zeros((d // 128, 128), dtype=jnp.uint8)
-    dense_b = jnp.zeros((d // 128, 128), dtype=jnp.uint8)
-    a = accumulate_sorted_pallas(dense_a, sorted_codes, tile_rows=8,
-                                 block=32, interpret=True)
-    b = accumulate_sorted_pallas(dense_b, sorted_codes, tile_rows=8,
-                                 block=32, interpret=True, int8_mxu=True)
-    assert np.array_equal(np.asarray(a), np.asarray(b))
-    assert int(np.asarray(a).max()) == 255
-
-
-def test_pallas_accumulate_saturation(rng):
-    d = 4**7
-    dense = jnp.zeros(d, dtype=jnp.uint8)
-    codes = np.zeros(600, dtype=np.int64)  # one cell, 600 hits
-    dense, _ = saturating_accumulate_tiled(
-        dense, jnp.asarray(codes), sentinel=d,
-        tile_rows=8, block=16, interpret=True,
-    )
-    out = np.asarray(dense)
-    assert out[0] == 255
-    assert out[1:].sum() == 0
-
-
-def test_pallas_accumulate_empty(rng):
-    d = 4**7
-    dense = jnp.zeros(d, dtype=jnp.uint8)
-    codes = np.full(64, d, dtype=np.int64)  # all sentinels
-    dense, nvalid = saturating_accumulate_tiled(
-        dense, jnp.asarray(codes), sentinel=d,
-        tile_rows=8, block=16, interpret=True,
-    )
-    assert int(nvalid) == 0
-    assert np.asarray(dense).sum() == 0
+    total = 4**kmer_len // 2  # folded space of K=7: 8192 cells
+    per = total // n_planes
+    planes = tuple(jnp.zeros(dense_plane_shape(per), dtype=jnp.uint8)
+                   for _ in range(n_planes))
+    stream = []
+    for _ in range(3):
+        codes = _batch(rng, kind, total)
+        stream.append(codes[codes < total])
+        planes = accumulate_sorted_planes(planes, jnp.sort(jnp.asarray(codes)))
+    got = np.concatenate([np.asarray(p).reshape(-1) for p in planes])
+    # the oracle counts a full 4^K space; the folded space is its low half
+    want = oracle_count_stream(stream, kmer_len, flush_every=10**9)[:total]
+    assert np.array_equal(got, want)
 
 
 def test_fetch_dense_packed_roundtrip(rng):
@@ -156,25 +132,10 @@ def test_fetch_dense_packed_no_escapes(rng):
     assert np.array_equal(fetch_dense(dense, mode="packed"), host)
 
 
-def test_pallas_rejects_int32_overflow():
-    """Planes/sentinels beyond int32 (K>=17 folded) must raise, not silently
-    wrap codes negative and corrupt tile 0."""
-    import jax.numpy as jnp
-    import pytest
-
-    from pykmer_tpu.ops.pallas_hist import saturating_accumulate_tiled
-
-    dense = jnp.zeros(1024, dtype=jnp.uint8)
-    codes = jnp.zeros(8, dtype=jnp.int64)
-    with pytest.raises(ValueError, match="int32"):
-        saturating_accumulate_tiled(dense, codes, sentinel=4**17 // 2,
-                                    interpret=True)
-
-
 def test_localize_sorted_bands():
     """Below-range → -1, in-range → code-lo, above-range → int32 max; all
-    monotone so the sweep's searchsorted stays valid."""
-    from pykmer_tpu.ops.pallas_hist import localize_sorted
+    monotone so the sub-plane scatter may treat its indices as sorted."""
+    from pykmer_tpu.ops.histogram import localize_sorted
 
     codes = jnp.asarray(
         np.array([0, 5, 99, 100, 150, 199, 200, 2**33], dtype=np.int64)
@@ -189,10 +150,10 @@ def test_localize_sorted_bands():
 
 @pytest.mark.parametrize("n_planes", [2, 4])
 def test_accumulate_sorted_planes_matches_numpy(rng, n_planes):
-    """Multi-sub-plane sweep (K>=17 folded-space layout at test scale):
+    """Multi-sub-plane apply (K>=17 folded-space layout at test scale):
     codes crossing plane boundaries, sentinels past the last plane, and
     saturation all match min(total, 255)."""
-    from pykmer_tpu.ops.pallas_hist import accumulate_sorted_planes
+    from pykmer_tpu.ops.histogram import accumulate_sorted_planes
 
     total = 4096
     per = total // n_planes
@@ -206,8 +167,7 @@ def test_accumulate_sorted_planes_matches_numpy(rng, n_planes):
         codes[400:420] = total  # sentinels (ignored)
         want += np.bincount(codes[codes < total], minlength=total)
         planes = accumulate_sorted_planes(
-            planes, jnp.sort(jnp.asarray(codes)),
-            tile_rows=8, block=16, interpret=True,
+            planes, jnp.sort(jnp.asarray(codes))
         )
     got = np.concatenate([np.asarray(p).reshape(-1) for p in planes])
     assert np.array_equal(got, np.minimum(want, 255))
@@ -267,19 +227,6 @@ def test_indexer_multiplane_device_path(rng, tmp_path, monkeypatch):
     assert open(h2.index_file_root, "rb").read() == ref_bytes
 
 
-def test_pallas_rejects_non_pow2_block():
-    import jax.numpy as jnp
-    import pytest
-
-    from pykmer_tpu.ops.pallas_hist import saturating_accumulate_tiled
-
-    dense = jnp.zeros(1024, dtype=jnp.uint8)
-    codes = jnp.zeros(8, dtype=jnp.int64)
-    with pytest.raises(ValueError, match="power of two"):
-        saturating_accumulate_tiled(dense, codes, sentinel=1024, block=24,
-                                    interpret=True)
-
-
 def test_indexer_multiplane_packed_readback(rng, tmp_path, monkeypatch):
     """K>=17-shaped branch conditions through create_fasta_index: forced
     3-bit packed readback over a tuple of sub-planes exercises the per-plane
@@ -318,35 +265,6 @@ def test_bad_max_sweep_cells_raises(monkeypatch):
     monkeypatch.setenv("PYKMER_TPU_MAX_SWEEP_CELLS", "3000")
     with pytest.raises(ValueError, match="PYKMER_TPU_MAX_SWEEP_CELLS"):
         ix._n_planes(4**7 // 2)
-
-
-def test_kernel_xla_multiplane_routes_to_host(rng, tmp_path, monkeypatch):
-    """kernel='xla' cannot drive the multi-sub-plane Pallas tail: auto
-    accumulate routes to the host strategy (same bytes); an explicit
-    accumulate='device' raises."""
-    import conftest
-    import pytest
-
-    from pykmer_tpu.config import IndexConfig
-    from pykmer_tpu.index import create_fasta_index
-
-    fa = str(tmp_path / "kx.fa")
-    conftest.make_random_fasta(fa, rng, n_records=1, lengths=(300,))
-    cfg = IndexConfig(kmer_len=7, chunk_windows=1 << 10)
-    h1 = create_fasta_index(fa, "s", fa, 7, config=cfg, verbose=False)
-    ref_bytes = open(h1.index_file_root, "rb").read()
-
-    monkeypatch.setenv("PYKMER_TPU_MAX_SWEEP_CELLS", "2048")
-    cfg_xla = IndexConfig(kmer_len=7, chunk_windows=1 << 10, kernel="xla")
-    h2 = create_fasta_index(fa, "s", fa, 7, overwrite=True, config=cfg_xla,
-                            verbose=False)
-    assert open(h2.index_file_root, "rb").read() == ref_bytes
-
-    cfg_dev = IndexConfig(kmer_len=7, chunk_windows=1 << 10, kernel="xla",
-                          accumulate="device")
-    with pytest.raises(ValueError, match="kernel='xla'"):
-        create_fasta_index(fa, "s", fa, 7, overwrite=True, config=cfg_dev,
-                           verbose=False)
 
 
 def test_stream_dense_chase_write_hash(rng, tmp_path):

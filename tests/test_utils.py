@@ -2,9 +2,9 @@
 
 The Timer's persisted fields are reference-constrained (reference
 tools.py:24-64: ``speed_ela`` -> ``creation_speed``, ``time_begin`` ->
-``creation_time_start``); the keepalive/profiling helpers are TPU-runtime
-glue with no reference analog but load-bearing behavior (no-op rules,
-suspension nesting, exception transparency).
+``creation_time_start``); the profiling and compile-cache helpers are
+runtime glue with no reference analog but load-bearing behavior (no-op
+rules, exception transparency, where the cache lives).
 """
 
 import datetime as real_dt
@@ -54,31 +54,34 @@ def test_timer_zero_elapsed_is_safe():
     assert t.speed_ela >= 0 and t.speed_recent >= 0
 
 
-def test_keepalive_noop_on_cpu_and_transparent():
-    # the test suite forces the CPU backend (conftest), where there is no
-    # link to warm: the context must yield with no pulse thread
-    import threading
-
-    from pykmer_tpu.utils.keepalive import d2h_keepalive
-
-    before = {th.name for th in threading.enumerate()}
-    with d2h_keepalive():
-        assert {th.name for th in threading.enumerate()} == before
-    # body exceptions propagate unswallowed
-    with pytest.raises(RuntimeError, match="boom"):
-        with d2h_keepalive():
-            raise RuntimeError("boom")
-
-
-def test_keepalive_suspension_nests():
-    from pykmer_tpu.utils import keepalive as ka
-
-    assert not ka._suspended()
-    with ka.keepalive_suspended():
-        with ka.keepalive_suspended():
-            assert ka._suspended()
-        assert ka._suspended()  # still held by the outer level
-    assert not ka._suspended()
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_dir(tmp_path, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX's own reading of it stands
+    and the package sets no directory; unset, the cache sits at one fixed
+    path inside the checkout."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")])
+    env["JAX_PLATFORMS"] = "cpu"
+    want = os.path.join(repo, ".jax_cache")
+    if env_dir is not None:
+        want = str(tmp_path / env_dir)
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, os\n"
+         "from pykmer_tpu import _jax_setup\n"
+         "_jax_setup.ensure_x64()\n"
+         "print(jax.config.jax_compilation_cache_dir)\n"
+         "print(_jax_setup.compile_cache_dir(os.environ))"],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    configured, set_by_package = res.stdout.split()
+    assert configured == want
+    assert set_by_package == ("None" if env_dir else want)
 
 
 def test_stage_timer_report():
